@@ -76,6 +76,9 @@ def build_system(cfg, mode, atlas=False):
 
 
 def main(argv=None):
+    from orb_slam3_noted_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset",
                    choices=["euroc", "tumvi", "kitti", "tum-rgbd"],

@@ -3,7 +3,7 @@
 Usage: ``python -m orb_slam3_noted_tpu.demo [n_frames] [--small]``
 
 Renders a camera sweep through a textured room, runs the full pipeline on
-the default JAX backend (TPU if available), prints per-frame tracking state
+the default JAX backend (the GPU where one is present), prints per-frame tracking state
 and the final Sim3-aligned ATE.
 """
 
@@ -64,6 +64,9 @@ def run(n_frames: int = 60, small: bool = False, verbose: bool = True):
 
 
 if __name__ == "__main__":
+    from orb_slam3_noted_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     n = 60
     small = "--small" in sys.argv
     for a in sys.argv[1:]:

@@ -1,6 +1,6 @@
 """Closed-form Sim(3)/SE(3) alignment (Horn's method).
 
-TPU-native equivalent of the reference's `Sim3Solver::ComputeSim3`
+Batched equivalent of the reference's `Sim3Solver::ComputeSim3`
 (`/root/reference/src/Sim3Solver.cc`) and of the evaluation script's
 alignment (`/root/reference/evaluation/evaluate_ate_scale.py`).  The
 reference uses Horn's quaternion method; here we use the SVD form (Umeyama),

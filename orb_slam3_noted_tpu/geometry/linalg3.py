@@ -1,9 +1,8 @@
-"""Closed-form small-matrix linear algebra (batched, TPU-friendly).
+"""Closed-form small-matrix linear algebra (batched).
 
-``jnp.linalg.inv/solve`` lower to LU decompositions with sequential control
-flow — catastrophically slow for large batches of tiny matrices on TPU
-(measured: seconds for (8192, 3, 3) inversions inside local BA).  These
-adjugate/Cramer forms are pure vectorized arithmetic.
+``jnp.linalg.inv/solve`` lower to LU decompositions with pivoting and
+sequential control flow per matrix; for large batches of tiny matrices
+these adjugate/Cramer forms are pure vectorized arithmetic instead.
 """
 
 from __future__ import annotations
@@ -48,7 +47,7 @@ def solve6(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched solve of (..., 6, 6) x = (..., 6) via 3x3 block elimination.
 
     Assumes the top-left 3x3 block is invertible (true for damped normal
-    equations).  Avoids LU loops on TPU.
+    equations).  Avoids batched LU with pivoting.
     """
     P = A[..., :3, :3]
     Q = A[..., :3, 3:]

@@ -1,6 +1,6 @@
 """Sim(3) RANSAC from 3D-3D map-point correspondences.
 
-TPU-native equivalent of ``Sim3Solver`` (`/root/reference/src/Sim3Solver.cc`:
+Batched equivalent of ``Sim3Solver`` (reference `src/Sim3Solver.cc`:
 Horn closed-form on random 3-point sets + reprojection-based inlier check +
 final refinement).  All hypotheses are built and scored in one batch; the
 refinement is IRLS-weighted Horn on the inlier set.

@@ -151,8 +151,8 @@ def normalize(R: jnp.ndarray) -> jnp.ndarray:
     """Re-orthonormalize a drifting rotation matrix (quaternion round-trip).
 
     Same scheme as the reference (`src/ImuTypes.cc` NormalizeRotation) and
-    branch-free, so it stays pure vectorized arithmetic — batched SVDs/LU on
-    TPU lower to sequential loops and are orders of magnitude slower.
+    branch-free, so it stays pure vectorized arithmetic instead of a
+    batched iterative SVD.
     """
     return from_quat(to_quat(R))
 
@@ -160,7 +160,7 @@ def normalize(R: jnp.ndarray) -> jnp.ndarray:
 def normalize_svd(R: jnp.ndarray) -> jnp.ndarray:
     """Polar-projection onto SO(3) via SVD (the optimal projection).
 
-    Slower on TPU (batched SVD); used only off the hot path.
+    Iterative (batched SVD); used only off the hot path.
     """
     U, _, Vt = jnp.linalg.svd(R)
     det = jnp.linalg.det(U @ Vt)

@@ -1,6 +1,6 @@
 """Two-view triangulation (batched DLT).
 
-TPU-native equivalent of the reference's triangulation in
+Batched equivalent of the reference's triangulation in
 `/root/reference/src/TwoViewReconstruction.cc` (``Triangulate``: SVD of the
 4x4 DLT system) and `src/CameraModels/KannalaBrandt8.cpp`
 (``TriangulateMatches``), redesigned as a batched closed form: instead of a
@@ -57,9 +57,8 @@ def triangulate_dlt(
     A = jnp.concatenate([A1, A2], axis=-2)  # (..., 4, 3)
     b = -jnp.concatenate([b1, b2], axis=-1)  # (..., 4)
 
-    # Full f32 MXU precision: the default TPU matmul precision (bf16 passes)
-    # is far too coarse for the squared system (observed ~0.7 m error at 6 m
-    # depth vs 1e-4 with HIGHEST).
+    # Full f32 precision: a reduced-precision matmul (bf16 or TF32 operands)
+    # is far too coarse for the squared system A^T A.
     AtA = jnp.einsum("...ki,...kj->...ij", A, A, precision=jax.lax.Precision.HIGHEST)
     Atb = jnp.einsum("...ki,...k->...i", A, b, precision=jax.lax.Precision.HIGHEST)
     # Regularize to keep the solve defined for degenerate (parallel-ray) pairs.

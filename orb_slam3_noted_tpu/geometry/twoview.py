@@ -1,6 +1,6 @@
 """Two-view relative pose (monocular bootstrap) as batched RANSAC.
 
-TPU-native equivalent of `/root/reference/src/TwoViewReconstruction.cc`
+Batched equivalent of the reference's `src/TwoViewReconstruction.cc`
 (``Reconstruct``: 200 RANSAC iterations each for homography and fundamental,
 model selection by score ratio, motion recovery, triangulation with
 cheirality/parallax gating).
@@ -55,8 +55,8 @@ def _eight_point_essential(x1: jnp.ndarray, x2: jnp.ndarray) -> jnp.ndarray:
     A = jnp.stack(
         [a2 * a1, a2 * b1, a2, b2 * a1, b2 * b1, b2, a1, b1, one], axis=-1
     )  # (H, 8, 9)
-    # nullspace via the batched 9x9 Gram eigenproblem (cheaper than batched
-    # SVD of the rectangular systems on TPU)
+    # nullspace via the batched 9x9 Gram eigenproblem (one small symmetric
+    # solve instead of an SVD of each rectangular system)
     G = jnp.einsum("hki,hkj->hij", A, A)
     _, V = jnp.linalg.eigh(G)
     E = V[..., :, 0].reshape(-1, 3, 3)

@@ -1,12 +1,12 @@
 """On-manifold IMU preintegration (Forster et al. 2016) as a ``lax.scan``.
 
-TPU-native equivalent of `/root/reference/src/ImuTypes.cc` (``Preintegrated``,
+Batched equivalent of the reference's `src/ImuTypes.cc` (``Preintegrated``,
 ``IntegrateNewMeasurement`` `:266-327`): same state {dT, dR, dV, dP}, same
 bias Jacobians {JRg, JVg, JVa, JPg, JPa}, same 15x15 covariance propagation
 with the A/B matrices of Forster's appendix (A.7-A.9), and the same
 first-order bias-correction getters (`GetDeltaRotation/Velocity/Position`).
 
-Design departures from the reference (intentional, TPU-first):
+Design departures from the reference (intentional, device-first):
 
 - A whole measurement batch integrates in one ``lax.scan`` instead of a
   per-sample virtual call; measurements are padded with dt=0 entries, which

@@ -68,6 +68,10 @@ class SlamConfig:
     enable_loop_closing: bool = False
     vocab_words: int = 1024
     loop_min_inliers: int = 25
+    # devices the loop correction's pose graph and global BA are sharded
+    # over; 1 keeps both on the first device, the sharded paths are taken
+    # only when this asks for more
+    loop_mesh_devices: int = 1
 
     # --- IMU (reference YAML IMU.* via Tracking::ParseIMUParamFile,
     #     `/root/reference/src/Tracking.cc:1106`) ---

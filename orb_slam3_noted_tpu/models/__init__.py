@@ -1,6 +1,6 @@
 """Camera models.
 
-TPU-native equivalent of the reference's ``GeometricCamera`` hierarchy
+Batched equivalent of the reference's ``GeometricCamera`` hierarchy
 (`/root/reference/include/CameraModels/GeometricCamera.h` with ``Pinhole`` and
 ``KannalaBrandt8`` implementations).  Instead of virtual dispatch, each model
 is a set of pure batched functions over a flat parameter vector, and

@@ -1,7 +1,7 @@
 """Native (C++) runtime support: prefetching dataset loader + stage timers.
 
-Builds ``libslamrt.so`` on first import (g++ + zlib, both baked into the
-image) and exposes it via ctypes.  See ``slamrt.cpp`` for what lives here
+Builds ``libslamrt.so`` from ``slamrt.cpp`` at first use (g++ + zlib); the
+built library is not kept in version control.  Exposes it via ctypes.  See ``slamrt.cpp`` for what lives here
 and why (the reference's runtime scaffolding is C++; ours is too, around the
 JAX/XLA compute path).
 """
@@ -22,14 +22,22 @@ _lib = None
 
 
 def _build():
-    subprocess.run(
-        [
-            "g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-            _SRC, "-o", _SO, "-lz", "-lpthread",
-        ],
-        check=True,
-        capture_output=True,
-    )
+    # build beside the target, then rename: a concurrent loader in another
+    # process sees either no library or a complete one
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            [
+                "g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+                _SRC, "-o", tmp, "-lz", "-lpthread",
+            ],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

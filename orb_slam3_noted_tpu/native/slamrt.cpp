@@ -1,9 +1,9 @@
-// Native runtime support for the TPU SLAM engine.
+// Native runtime support for the SLAM engine.
 //
 // The reference implements its runtime scaffolding (dataset loaders, frame
 // queues, per-stage timers) in C++ (`/root/reference/Examples/*/
 // stereo_inertial_euroc.cc` LoadImages + main loop; `include/Config.h`
-// REGISTER_TIMES timers). This library is the TPU-native equivalent: the
+// REGISTER_TIMES timers). This library is the equivalent here: the
 // device compute path is JAX/XLA, and the host-side feeding/timing runs
 // here, off the Python GIL:
 //

@@ -5,7 +5,7 @@ The reference ships five ROS nodes (`Examples/ROS/ORB_SLAM3/src/ros_mono.cc`,
 `ros_stereo_inertial.cc`): each subscribes to image/IMU topics, buffers
 messages under a mutex, synchronizes images with IMU by timestamp in a
 `SyncWithImu` loop (`ros_mono_inertial.cc:141-185`), and feeds
-``System::Track*`` from the loop.  In a TPU harness there is no roscore;
+``System::Track*`` from the loop.  Without ROS there is no roscore;
 this node keeps the same shape with plain sockets and threads:
 
 - :class:`SlamNode` owns a SLAM system (any mode `cli.build_system` can
@@ -313,7 +313,9 @@ def main(argv=None):
     import argparse
 
     from orb_slam3_noted_tpu.io.yaml_compat import load_settings
+    from orb_slam3_noted_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description="live streaming SLAM node")
     ap.add_argument("--settings", required=True)
     ap.add_argument("--mode", default="mono")

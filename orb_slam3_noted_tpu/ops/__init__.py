@@ -1,6 +1,6 @@
 """Feature-frontend and matching kernels (batched XLA / Pallas).
 
-TPU-native replacements for the reference's per-pixel C++ loops:
+Batched device replacements for the reference's per-pixel C++ loops:
 
 - :mod:`orb_slam3_noted_tpu.ops.image` — bilinear resize + Gaussian blur
   (reference: ``cv::resize`` / ``cv::GaussianBlur`` calls in
@@ -11,7 +11,7 @@ TPU-native replacements for the reference's per-pixel C++ loops:
   descriptors and the full pyramid extractor
   (reference: `src/ORBextractor.cc:452-477,1115-1120`).
 - :mod:`orb_slam3_noted_tpu.ops.matching` — Hamming matrices (popcount and
-  MXU bit-matmul forms), mutual-NN/ratio/rotation-consistency matching, and
+  bit-matmul forms), mutual-NN/ratio/rotation-consistency matching, and
   windowed projection search (reference: `src/ORBmatcher.cc`).
 - :mod:`orb_slam3_noted_tpu.ops.stereo` — rectified row-band stereo matching
   (reference: `src/Frame.cc:794` ``ComputeStereoMatches``).

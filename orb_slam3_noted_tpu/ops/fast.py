@@ -1,11 +1,11 @@
 """FAST-9/16 corner detection as dense whole-image kernels.
 
-TPU-native re-design of the reference's cell-wise OpenCV FAST with quadtree
+Dense re-design of the reference's cell-wise OpenCV FAST with quadtree
 distribution (`/root/reference/src/ORBextractor.cc:537-1057`
 ``ComputeKeyPointsOctTree`` / ``DistributeOctTree``):
 
 - The segment test runs densely over the whole level as 16 shifted images and
-  windowed ring minima (VPU-friendly, no per-pixel branching).
+  windowed ring minima (elementwise, no per-pixel branching).
 - The score is the classic "max over contiguous 9-arcs of the min margin",
   i.e. the largest threshold at which the pixel is still a corner.
 - The dual-threshold fallback (iniThFAST=20 -> minThFAST=7 when a cell is

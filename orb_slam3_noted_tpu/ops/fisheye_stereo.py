@@ -1,6 +1,6 @@
 """Non-rectified fisheye stereo: lapping-area matching + direct triangulation.
 
-TPU-native equivalent of the reference's fisheye stereo path:
+Batched equivalent of the reference's fisheye stereo path:
 
 - ``Frame::ComputeStereoFishEyeMatches`` (`/root/reference/src/Frame.cc:1116`)
   matches left/right ORB descriptors restricted to each camera's lapping
@@ -13,7 +13,7 @@ TPU-native equivalent of the reference's fisheye stereo path:
   error (5.991 * sigma^2 per view).
 
 Here the candidate set is the full dense Hamming matrix gated by the lapping
-masks (one MXU matmul) and every gate is evaluated for all pairs at once.
+masks (one matmul) and every gate is evaluated for all pairs at once.
 """
 
 from __future__ import annotations

@@ -1,14 +1,14 @@
 """Binary-descriptor matching kernels.
 
-TPU-native re-design of `/root/reference/src/ORBmatcher.cc`: instead of
+Dense re-design of the reference's `src/ORBmatcher.cc`: instead of
 per-feature candidate lists walked with scalar popcount loops
 (``DescriptorDistance`` `:2561-2577`), whole cost matrices are built at once:
 
 - :func:`hamming_matrix` — XOR + ``population_count`` on packed uint32 words
-  (VPU path, exact).
+  (elementwise path, exact).
 - :func:`hamming_matrix_mxu` — bits unpacked to a (N, 256) matrix so the
   Hamming distance becomes ``popA + popB - 2 A B^T``, one bf16 matmul on the
-  MXU (used when both sides are large, e.g. place recognition).
+  matmul unit (used when both sides are large, e.g. place recognition).
 - :func:`match_nn` — nearest neighbour with the reference's gates: TH_LOW/
   TH_HIGH absolute thresholds, best/second-best ratio (``mfNNratio``),
   optional mutual cross-check, optional rotation-consistency histogram of 30
@@ -49,7 +49,7 @@ def hamming_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def hamming_matrix_mxu(bits_a: jnp.ndarray, bits_b: jnp.ndarray) -> jnp.ndarray:
-    """Hamming via one MXU matmul on unpacked bits.
+    """Hamming via one matmul on unpacked bits.
 
     bits_*: (N, 256) uint8 (0/1). ham = popA + popB - 2 * A @ B^T.
     """
@@ -71,8 +71,8 @@ class Matches(NamedTuple):
 def _best_two(masked: jnp.ndarray):
     """(best, second, argbest) along the last axis without a sort.
 
-    ``lax.top_k`` lowers to a full sort on TPU — two min/argmin passes are
-    far cheaper on the VPU for wide match matrices.
+    Two min/argmin passes: two streaming reductions over each row instead
+    of a ``lax.top_k`` selection.
     """
     best = jnp.min(masked, axis=-1)
     idx = jnp.argmin(masked, axis=-1).astype(jnp.int32)
@@ -148,8 +148,8 @@ def search_by_projection(
 
     Returns (Nq,) Matches into the frame features.
     """
-    # MXU bit-matmul: for map-size x frame-size matrices this beats the
-    # popcount path by an order of magnitude
+    # bit-matmul: map-size x frame-size matrices become one dense
+    # contraction instead of an XOR + popcount per pair
     d = hamming_matrix_mxu(unpack_bits(desc_q), unpack_bits(feat_desc))  # (Nq, Nf)
     du = uv_pred[:, None, 0] - feat_xy[None, :, 0]
     dv = uv_pred[:, None, 1] - feat_xy[None, :, 1]

@@ -1,10 +1,11 @@
 """ORB extraction: IC-angle orientation, rBRIEF descriptors, full pyramid.
 
-TPU-native re-design of `/root/reference/src/ORBextractor.cc`:
+Batched re-design of the reference's `src/ORBextractor.cc`:
 
 - Orientation (``IC_Angle``, `:452-477`): instead of per-keypoint patch loops,
   the intensity moments m10/m01 are computed densely for the whole level as
-  two 31x31 cross-correlations (MXU-friendly), then sampled at keypoints.
+  two 31x31 circular-patch sums (row prefix sums), then sampled at
+  keypoints.
   The circular patch mask reproduces OpenCV's ``umax`` table exactly.
 - Descriptors (``computeOrbDescriptor``, `:1115-1120`): the 256 learned point
   pairs (:mod:`orb_pattern`) are rotated by the keypoint angle, rounded, and
@@ -28,7 +29,6 @@ import numpy as np
 
 from orb_slam3_noted_tpu.ops import fast as fast_ops
 from orb_slam3_noted_tpu.ops import image as image_ops
-from orb_slam3_noted_tpu.ops import pallas_kernels as pk
 from orb_slam3_noted_tpu.ops.orb_pattern import BIT_PATTERN_31
 
 HALF_PATCH = 15
@@ -84,8 +84,8 @@ def ic_angle_maps(img: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     ``T_w(x) = sum_{|dx|<=w} dx * I(x+dx)`` follow from two x-cumsums
     (``T_w = w*(C1(x+w)+C1(x-w-1)) - C2(x+w-1) + C2(x-w-1)``), and
     ``m01 = sum_dy dy*B_{u}(y+dy)``, ``m10 = sum_dy T_{u}(y+dy)`` are 61
-    shifted adds.  This replaces a dense 31x31 conv (961 taps/pixel, ~17 ms
-    per level on TPU) with ~1 ms of VPU work.  The image is centred (-128)
+    shifted adds.  This replaces a dense 31x31 conv (961 taps/pixel) with
+    ~120 elementwise adds per pixel.  The image is centred (-128)
     first so the prefix sums stay small enough for exact f32 arithmetic
     (the circular mask is symmetric, so the moments are shift-invariant).
     """
@@ -151,17 +151,10 @@ def brief_descriptors(
     gx = jnp.clip(xy[:, 0:1].astype(jnp.int32) + rx, 0, w - 1)
     gy = jnp.clip(xy[:, 1:2].astype(jnp.int32) + ry, 0, h - 1)
 
-    # Pallas sampling kernel on TPU: each keypoint reads a VMEM window and
-    # selects its 512 samples with one-hot contractions — the XLA gather is
-    # latency-bound at ~14 ns/element and dominates extraction
-    # (PROFILE_r04.md).  Comparisons stay on the f32 blur — OpenCV compares
-    # the rounded 8U blur, but rounding first measurably degrades
-    # association on depth-seeded maps (RGB-D max ATE 0.10 -> 0.147 m).
-    out = pk.brief_sample_tpu(img_blur, gy, gx)
-    if out is not None:
-        return out
-
-    # XLA fallback: flat 1-D gather (~20% faster than the 2-axis form)
+    # Flat 1-D gather: one linear index per sample.  Comparisons stay
+    # on the f32 blur: OpenCV compares the rounded 8U blur, but rounding
+    # first measurably degrades association on depth-seeded maps (RGB-D
+    # max ATE 0.10 -> 0.147 m).
     flat = img_blur.reshape(-1)
     vals = jnp.take(flat, gy * w + gx, axis=0)  # (K, 512)
     bits = (vals[:, :256] < vals[:, 256:]).astype(jnp.uint32)
@@ -209,7 +202,8 @@ def extract_orb(
     th_low: float = 7.0,
 ) -> FrameFeatures:
     """Full ORB pipeline for one grayscale image (H, W) float32 [0, 255]."""
-    levels = image_ops.build_pyramid(img, n_levels, scale_factor)
+    with jax.named_scope("pyramid"):
+        levels = image_ops.build_pyramid(img, n_levels, scale_factor)
     return extract_from_pyramid(
         tuple(levels), n_features=n_features, n_levels=n_levels,
         scale_factor=scale_factor, th_high=th_high, th_low=th_low,
@@ -234,13 +228,19 @@ def extract_from_pyramid(
     for lvl, (level_img, budget) in enumerate(zip(levels, budgets)):
         if budget <= 0:
             continue
-        score = pk.fast_score(level_img)
-        kps = fast_ops.detect_level(
-            score, n_out=budget, th_high=th_high, th_low=th_low, border=16
-        )
-        ang = ic_angles(level_img, kps.xy)
-        blur = pk.gaussian_blur7(level_img, 2.0)
-        desc = brief_descriptors(blur, kps.xy, ang)
+        # named scopes give each stage a stable name in device traces
+        with jax.named_scope("fast_score"):
+            score = fast_ops.fast_score(level_img)
+        with jax.named_scope("fast_detect"):
+            kps = fast_ops.detect_level(
+                score, n_out=budget, th_high=th_high, th_low=th_low, border=16
+            )
+        with jax.named_scope("ic_angle"):
+            ang = ic_angles(level_img, kps.xy)
+        with jax.named_scope("blur7"):
+            blur = image_ops.gaussian_blur(level_img, 7, 2.0)
+        with jax.named_scope("brief"):
+            desc = brief_descriptors(blur, kps.xy, ang)
         # Exact level->0 mapping: the resize uses half-pixel centers and the
         # ACTUAL per-axis ratio W0/Wl (rounded level sizes drift from the
         # nominal 1.2^l by ~0.1%, which is a visible disparity bias).
@@ -284,7 +284,7 @@ def extract_orb_batch(
 
     The per-image path runs ~40 small per-level kernels; batching frames
     turns each into one B-wide kernel, amortizing dispatch latency and
-    filling the VPU.  This is the throughput-mode analogue of the
+    filling the device.  This is the throughput-mode analogue of the
     reference's per-frame dual extraction threads (`src/Frame.cc:119-122`),
     generalized to whole frame batches (SURVEY §2.3 "data parallelism
     within a frame").

@@ -1,13 +1,11 @@
-"""Segment-sum strategies for TPU.
+"""Segment-sum strategies.
 
-``jax.ops.segment_sum`` lowers to scatter-add; on TPU (mosaic) scatters
-serialize per row and measure ~1 ms per call at our sizes — they dominate
-the BA/tracking hot paths.  ``segment_sum_mxu`` reformulates the reduction
-as a one-hot matmul, S[s, f] = sum_o 1[seg_o == s] * data[o, f]: the one-hot
-operand is fused into the dot, so the MXU streams it — no scatter at all.
-
-``precision='float32'`` uses 3-pass bf16 emulation (exact enough for normal
-equations assembly: inputs are f32, accumulation in f32).
+``jax.ops.segment_sum`` lowers to a scatter-add, whose row updates collide
+on shared segments.  ``segment_sum_mxu`` reformulates the reduction as a
+one-hot matmul, S[s, f] = sum_o 1[seg_o == s] * data[o, f]: the one-hot
+operand is fused into the dot, so the reduction is one dense contraction
+with no scatter at all.  Which is faster depends on the device and the
+sizes; the switch below selects the path.
 
 Env ``SLAM_SEGSUM=scatter`` forces the scatter path (A/B testing).
 """
@@ -24,12 +22,12 @@ _IMPL = os.environ.get("SLAM_SEGSUM", "mxu")
 
 def segment_sum_mxu(data: jnp.ndarray, seg: jnp.ndarray, num_segments: int,
                     precision=jax.lax.Precision.HIGHEST):
-    """segment_sum via one-hot matmul on the MXU.
+    """segment_sum via one one-hot matmul.
 
     data: (O, ...) float; seg: (O,) int32 in [0, num_segments).
     Accumulation is always f32; ``precision`` controls operand rounding
-    (HIGHEST = exact f32 via multi-pass, DEFAULT = bf16 operands — 6x fewer
-    MXU passes, ~0.4% operand rounding; fine for Hessian assembly whose
+    (HIGHEST = exact f32, DEFAULT = the device's reduced-precision
+    operands — ~0.4% operand rounding in bf16; fine for Hessian assembly whose
     steps are cost-checked anyway).
     """
     if _IMPL == "scatter":

@@ -1,6 +1,6 @@
 """Rectified stereo matching: row-band Hamming + SAD subpixel refinement.
 
-TPU-native re-design of ``Frame::ComputeStereoMatches``
+Batched re-design of ``Frame::ComputeStereoMatches``
 (`/root/reference/src/Frame.cc:794-963`): the per-left-keypoint candidate
 scan becomes one (NL, NR) masked Hamming matrix (row band ±2·scale, octave
 ±1, disparity in [0, bf/b], best < (TH_HIGH+TH_LOW)/2), and the sliding SAD
@@ -70,7 +70,8 @@ def match_stereo(
     th_orb = (M.TH_HIGH + M.TH_LOW) // 2
 
     # ---- candidate gating + Hamming best match ----
-    d = M.hamming_matrix(left.desc, right.desc)  # (NL, NR)
+    with jax.named_scope("stereo_hamming"):
+        d = M.hamming_matrix(left.desc, right.desc)  # (NL, NR)
     row_tol = 2.0 * sf[right.level]              # reference: 2 * right scale
     dv = jnp.abs(left.xy[:, None, 1] - right.xy[None, :, 1])
     row_ok = dv <= row_tol[None, :]
@@ -84,11 +85,10 @@ def match_stereo(
     have = best < th_orb
 
     # ---- SAD subpixel at the left keypoint's level, via a pyramid ATLAS ----
-    # Round 2 looped the 8 levels, gathering (NL, 11, 21) patches PER level
-    # (masked for the other levels' keypoints) — 8x redundant gathers that
-    # dominated the stereo frontend (~40 ms/frame measured).  Instead the
-    # levels are stacked into one tall (sum h_l, W0) image per side and every
-    # keypoint gathers once from its own level's row band.
+    # Looping the 8 levels would gather (NL, 11, 21) patches PER level
+    # (masked for the other levels' keypoints) — 8x redundant gathers.
+    # Instead the levels are stacked into one tall (sum h_l, W0) image per
+    # side and every keypoint gathers once from its own level's row band.
     lvl = left.level
     uL0 = left.xy[:, 0]
     uR0 = right.xy[idx_r, 0]
@@ -117,31 +117,10 @@ def match_stereo(
     cv = jnp.round((vL0 + 0.5) / sy - 0.5).astype(jnp.int32)
     cur = jnp.round((uR0 + 0.5) / sx - 0.5).astype(jnp.int32)
 
-    # clamp to the level interior (FAST margins keep real keypoints inside;
-    # this only protects invalid/padded rows)
-    cu_c = jnp.clip(cu, 0, w_t[lvl] - 1)
-    cv_c = jnp.clip(cv, 0, h_t[lvl] - 1)
-    cur_c = jnp.clip(cur, 0, w_t[lvl] - 1)
-
-    from orb_slam3_noted_tpu.ops import pallas_kernels as PK
-
-    H_at = atlas_l.shape[0]
-    hpad = -(-H_at // 8) * 8 + PK._SAD_WH
-    wpad = -(-W0 // 128) * 128 + PK._SAD_WW
-    sads = None
-    if PK._HAS_PALLAS and PK._on_tpu():
-        # Pallas SAD: aligned VMEM windows + one-hot MXU selection instead
-        # of a ~422k-element random gather (~6 ms/frame, round-5 profile).
-        # bf16 atlases halve VMEM residency; SADs accumulate in f32.
-        pad_at = lambda a: jnp.pad(
-            a, ((0, hpad - H_at), (0, wpad - W0))
-        ).astype(jnp.bfloat16)
-        sads = PK.sad_stereo_tpu(
-            pad_at(atlas_l), pad_at(atlas_r),
-            cv_c + off_t[lvl], cu_c, cur_c,
-        )
-    if sads is None:
-        # XLA gather fallback (CPU tests / non-TPU backends)
+    # gather SAD: 11x11 left patches and 11x21 right strips, clamped to the
+    # level interior (FAST margins keep real keypoints inside; the clamp
+    # only protects invalid/padded rows)
+    with jax.named_scope("sad"):
         dy = jnp.arange(-_W, _W + 1)
         yy = jnp.clip(cv[:, None] + dy[None, :], 0, h_t[lvl][:, None] - 1)
         yy = yy + off_t[lvl][:, None]                           # (NL, 11)

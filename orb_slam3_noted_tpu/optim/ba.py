@@ -11,7 +11,7 @@ but batched:
 - residuals/Jacobians for all observations at once (:mod:`factors`),
 - Hpp/Hll/g assembled with ``segment_sum``,
 - the pose-pose reduced system S = Hpp - U Hll^-1 U^T built with two dense
-  einsum contractions (MXU) over a scatter-assembled U — exact, not CG,
+  einsum contractions over a scatter-assembled U — exact, not CG,
 - dense Cholesky-style solve of S (6K x 6K; local windows keep K <= ~100 as
   the reference does, Nd<=25 opt + <=200 fixed per `src/Optimizer.cc:3904`).
 
@@ -110,7 +110,7 @@ def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf):
         + lam * Hll * eye3
         + (1e-8 + prob.point_fixed.astype(dtype))[:, None, None] * eye3
     )
-    Cinv = inv3(Hll)  # (M, 3, 3) closed form (LU batches are slow on TPU)
+    Cinv = inv3(Hll)  # (M, 3, 3) closed form, no batched LU
 
     # U[k, a, m, b] = sum of W_o for obs (k, m)
     U = jnp.zeros((K, 6, M, 3), dtype).at[obs.pose_idx, :, obs.point_idx, :].add(W_o)

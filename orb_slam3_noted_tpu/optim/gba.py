@@ -13,7 +13,7 @@ Here the reduced camera system
 is solved by preconditioned conjugate gradients where every product with
 ``U``/``U^T`` is evaluated observation-wise (einsum over the (O, 6, 3)
 per-observation blocks + ``segment_sum``), so memory stays O(O + K + M) and
-the heavy math is batched matmuls on the MXU.
+the heavy math is batched matmuls.
 
 The LM outer loop uses cost-checked adaptive damping (accept/reject, lambda
 x0.5 / x5) — unlike g2o's fixed schedule this is divergence-safe on the
@@ -444,7 +444,7 @@ def distributed_global_ba(
     The multi-host north star (SURVEY §2.3, BASELINE.json): every device
     evaluates residual blocks for its observation shard; the (K,6)/(M,3)
     segment sums inside the Schur matvec and the preconditioner are reduced
-    with ``psum`` over ICI, so each CG iteration communicates O(K*6 + M*3)
+    with ``psum`` over the mesh, so each CG iteration communicates O(K*6 + M*3)
     floats — not the observation set.  The LM outer loop keeps the
     cost-checked adaptive damping (accept/reject) of the single-chip engine;
     all devices see identical psum'd costs, so control flow stays in
@@ -642,7 +642,7 @@ def full_map_problem(m, cfg, sample_stride: int = 1):
 # ---------------------------------------------------------------------------
 # time-sliced GBA (round-4): the reference runs GBA in a transient thread so
 # tracking never stalls (`src/LoopClosing.cc:1090-1097`); a single chip has
-# one compute stream, so the TPU-native equivalent runs ONE LM step per
+# one compute stream, so the equivalent here runs ONE LM step per
 # frame/batch boundary against a problem snapshot and write-backs deltas
 # when converged — bounding the per-frame latency hit to one LM step.
 # ---------------------------------------------------------------------------

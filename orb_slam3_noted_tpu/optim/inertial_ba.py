@@ -1,6 +1,6 @@
 """Joint visual-inertial bundle adjustment (one engine, many entry points).
 
-TPU-native replacement for the reference's inertial g2o optimizations
+Batched replacement for the reference's inertial g2o optimizations
 (`/root/reference/src/Optimizer.cc`):
 
 - ``LocalInertialBA`` (`:3900`): temporal window of body states + local map
@@ -15,7 +15,7 @@ Design (SURVEY §7 phase D): body states are a (K, 15) SoA table; landmarks
 are Schur-marginalized exactly as in :mod:`orb_slam3_noted_tpu.optim.ba`;
 inertial/bias/prior factors contribute dense 15x15 blocks assembled by
 scatter-add (the temporal chain has O(K) edges — tiny next to the
-reprojection table, which rides segment_sum + MXU einsums).
+reprojection table, which rides segment_sum + einsums).
 """
 
 from __future__ import annotations

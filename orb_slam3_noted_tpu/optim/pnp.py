@@ -1,6 +1,6 @@
 """Batched PnP RANSAC for relocalization.
 
-TPU-native replacement for ``MLPnPsolver``
+Batched replacement for ``MLPnPsolver``
 (`/root/reference/src/MLPnPsolver.cpp`, used by ``Tracking::Relocalization``
 `src/Tracking.cc:3455-3623`): like MLPnP it works on bearing vectors (so it
 handles fisheye), but instead of a sequential RANSAC with a nullspace-based

@@ -6,7 +6,7 @@ keyframe poses are re-optimized as Sim(3) vertices against relative-pose
 edges (covisibility + spanning chain + loop edges), absorbing accumulated
 drift — including monocular scale drift — into the graph.
 
-TPU-native design: all edge residuals r_e = log(S_meas * S_i * S_j^{-1}) and
+Batched design: all edge residuals r_e = log(S_meas * S_i * S_j^{-1}) and
 their 7x14 Jacobians evaluate in one vmapped autodiff batch; the dense
 (7K x 7K) normal system is scatter-assembled and solved whole.  K <= a few
 hundred keyframes keeps this comfortably on one chip (the distributed
@@ -170,7 +170,7 @@ def distributed_pose_graph_sim3(
 
     The distributed essential-graph half of the SURVEY §2.3 north star:
     every device evaluates residuals/Jacobians for its edge shard, the
-    assembled (K,7,K,7) normal equations are ``psum``'d over ICI, and the
+    assembled (K,7,K,7) normal equations are ``psum``'d over the mesh, and the
     dense solve is replicated (K <= a few hundred keyframes — the solve is
     tiny next to the per-edge autodiff Jacobians, which dominate and shard
     perfectly).  Returns (R, t, s, cost), replicated.

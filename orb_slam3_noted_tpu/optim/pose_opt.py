@@ -30,8 +30,8 @@ from orb_slam3_noted_tpu.optim.robust import (
 )
 
 # The reference runs 4 rounds x 10 LM iterations; Gauss-Newton on the
-# per-frame pose fit converges in <5 iterations, and on TPU the sequential
-# iteration chain is latency-bound — so we run 3 rounds x 4 damped-GN
+# per-frame pose fit converges in <5 iterations, and each iteration is a
+# sequential step of small kernels — so we run 3 rounds x 4 damped-GN
 # iterations with accept-always inside a round and a per-round safety check
 # (revert if the round increased the robust cost).  Measured: the extra
 # round/iterations of the 4x5 schedule changed bench-scene ATE by <2%

@@ -11,7 +11,7 @@ The reference's verification ladder after Sim3 RANSAC
    Huber sqrt(10), outlier removal between rounds;
 3. accept only with >= 20 post-optimization inliers.
 
-Batched TPU form: the two projection-matching directions are two masked
+Batched form: the two projection-matching directions are two masked
 Hamming matrices + window gates; the GN loop runs over fixed-size pair
 tables with invalid rows zero-weighted.
 """

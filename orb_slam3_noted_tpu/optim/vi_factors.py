@@ -1,6 +1,6 @@
 """Visual-inertial factor library (batched residuals + Jacobians).
 
-TPU-native equivalent of the reference's inertial factor graph types
+Batched equivalent of the reference's inertial factor graph types
 (`/root/reference/include/G2oTypes.h`):
 
 - body-frame reprojection residuals = ``EdgeMono/EdgeStereo`` attached to a

@@ -5,12 +5,12 @@ Equivalent of ``Optimizer::LocalBundleAdjustment``
 fixed anchor cameras, and the landmarks they see.  The round-2 engine solved
 this with the matrix-free Schur/PCG machinery built for Atlas-scale GBA
 (:mod:`orb_slam3_noted_tpu.optim.gba`); correct, but each CG iteration is a
-chain of O(10) tiny kernels and 24 iterations x ~10 LM steps left the TPU
-latency-bound at ~120 ms per solve.
+chain of O(10) tiny kernels, and 24 iterations x ~10 LM steps make a long
+sequential chain of small launches per solve.
 
 This engine exploits the window structure instead: with KW <= ~10 free poses
 the reduced camera system S is only (KW*6, KW*6), so it is assembled
-EXACTLY with three batched einsum contractions (MXU work, no iteration):
+EXACTLY with three batched einsum contractions (dense work, no iteration):
 
     U_m   = (KW, 6, 3) pose-point coupling per landmark (one segment-sum)
     S     = blkdiag(Hpp) - sum_m U_m Hll_m^-1 U_m^T

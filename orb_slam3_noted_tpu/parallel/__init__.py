@@ -1,9 +1,9 @@
 """Multi-device sharding: distributed bundle adjustment over a mesh.
 
 Replaces the reference's single-process shared-memory design (SURVEY §2.3 —
-no distributed backend exists there) with the TPU-native scale-out story:
+no distributed backend exists there) with a device-mesh scale-out path:
 observations and landmark blocks shard across a ``jax.sharding.Mesh``; the
-reduced-camera-system assembly is a ``psum`` over the mesh (ICI
+reduced-camera-system assembly is a ``psum`` over the mesh (device
 collectives), and the small pose system is solved replicated.
 """
 

@@ -2,7 +2,7 @@
 
 The multi-chip path of SURVEY §2.3/§7-F: the observation table (the large
 axis — O >> K, M) is sharded across devices on an ``obs`` mesh axis; every
-device evaluates residuals/Jacobians for its shard; ``psum`` over ICI
+device evaluates residuals/Jacobians for its shard; ``psum`` over the mesh
 reduces the normal-equation blocks; the Schur reduction and pose solve run
 replicated — the "assemble-with-collectives, solve-replicated" recipe of
 the reference's north star (BASELINE.json).
@@ -29,6 +29,10 @@ from orb_slam3_noted_tpu.optim import factors
 def make_mesh(n_devices: int | None = None, axis: str = "obs") -> Mesh:
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(
+                f"mesh of {n_devices} devices asked for, {len(devs)} visible"
+            )
         devs = devs[:n_devices]
     return Mesh(devs, (axis,))
 

@@ -611,8 +611,8 @@ def vi_track_batch(
     MP = m.mp_pos.shape[0]
 
     # compact the local map to a bounded row set BEFORE matching: the
-    # (MP x NF) projection-search masks are HBM-bound at full 16k-point
-    # capacity (~0.6 ms/frame of pure temporary traffic, round-5 profile);
+    # (MP x NF) projection-search masks are memory-bound at full 16k-point
+    # capacity (pure temporary traffic);
     # the local window holds ~2-3k live points, so a 4096-row view does
     # the same association at 1/4 the bandwidth
     MPC = min(4096, MP)

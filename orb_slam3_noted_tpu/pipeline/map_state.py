@@ -1,6 +1,6 @@
 """Fixed-capacity device-resident map state (keyframes + map points).
 
-TPU-native replacement for the reference's pointer-graph map
+Device-resident replacement for the reference's pointer-graph map
 (`/root/reference/src/{Map,KeyFrame,MapPoint}.cc` + per-object mutexes):
 everything is a preallocated SoA array with validity masks, updated
 functionally with ``.at[]`` — snapshots are free (immutable arrays), which
@@ -9,7 +9,7 @@ removes the reference's lock protocol (`include/Map.h:111`
 
 The covisibility graph (`include/KeyFrame.h:87-96`) is not stored as
 adjacency lists: a dense (KF_CAP, MP_CAP) observation matrix is maintained
-incrementally, and covisibility weights are one int8 matmul on the MXU
+incrementally, and covisibility weights are one int8 matmul
 (``obs @ obs[k]``) — the batched analogue of ``UpdateConnections``.
 """
 
@@ -60,7 +60,7 @@ class MapArrays(NamedTuple):
     mp_visible: jnp.ndarray    # (MP,) int32 "visible" counter (reference mnVisible)
     mp_found: jnp.ndarray      # (MP,) int32 "found" counter (mnFound)
 
-    # dense observation incidence (covisibility on the MXU)
+    # dense observation incidence (covisibility by matmul)
     obs_mat: jnp.ndarray       # (KF, MP) bool
 
 
@@ -158,7 +158,7 @@ def refresh_parent(m: MapArrays, slot: jnp.ndarray) -> MapArrays:
 
 @jax.jit
 def covisibility_weights(m: MapArrays, slot: jnp.ndarray) -> jnp.ndarray:
-    """(KF,) number of map points shared with keyframe `slot` (MXU matmul).
+    """(KF,) number of map points shared with keyframe `slot` (one matmul).
 
     Batched equivalent of ``KeyFrame::UpdateConnections``
     (`src/KeyFrame.cc`): weight(i) = |obs_i ∩ obs_slot|.
@@ -316,7 +316,7 @@ def update_point_stats(
       segment-sum over the flat observation table, no pairwise matrix.
       (The reference minimizes the *median*; for the <= dozens of
       observations per point the mean/median argmins coincide in practice
-      and the mean is a single MXU-friendly reduction.)
+      and the mean is a single dense reduction.)
     - normal: mean unit vector from each observing keyframe centre.
     - dmin/dmax: distance to the reference KF scaled by the observed octave
       (``PredictScale`` range).

@@ -201,8 +201,8 @@ def track_frame(
         """Pose opt on a compacted observation table.
 
         The per-map-point obs table is MP rows but only the matched few
-        hundred matter; 20 sequential GN kernels over MP rows are
-        latency/bandwidth-bound on TPU, so gather the matched rows into a
+        hundred matter; 20 sequential GN kernels over MP rows would read
+        every row each time, so gather the matched rows into a
         fixed NC-row table first and scatter inliers back.
         """
         _, sel = jax.lax.top_k(obs.valid.astype(jnp.int32), NC)
@@ -448,8 +448,8 @@ def track_batch(
 ):
     """Track a whole batch of frames in ONE device dispatch (lax.scan).
 
-    The TPU-throughput mode: per-frame host round-trips dominate wall time
-    over a thin link, so B frames scan on-device with the constant-velocity
+    The throughput mode: per-frame host round-trips would dominate wall
+    time, so B frames scan on-device with the constant-velocity
     model threaded through the carry; the host syncs once per batch.
     Keyframe insertion happens between dispatches, at the FRAME that needs
     it: per-frame features/bindings are returned for the whole batch so the
@@ -557,9 +557,12 @@ def _stereo_frontend(imgsL_u8, imgsR_u8, cam, cfg, bf):
 
     B = imgsL_u8.shape[0]
     both = jnp.concatenate([imgsL_u8, imgsR_u8], 0).astype(jnp.float32)
-    pyr = jax.vmap(
-        lambda im: tuple(image_ops.build_pyramid(im, cfg.n_levels, cfg.scale_factor))
-    )(both)
+    with jax.named_scope("pyramid"):
+        pyr = jax.vmap(
+            lambda im: tuple(
+                image_ops.build_pyramid(im, cfg.n_levels, cfg.scale_factor)
+            )
+        )(both)
     feats2 = jax.vmap(
         partial(
             O.extract_from_pyramid,

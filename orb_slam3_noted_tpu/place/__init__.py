@@ -1,6 +1,6 @@
-"""Place recognition: bag-of-binary-words on the MXU.
+"""Place recognition: bag-of-binary-words by matmul.
 
-TPU-native replacement for DBoW2 + KeyFrameDatabase
+Batched replacement for DBoW2 + KeyFrameDatabase
 (`/root/reference/Thirdparty/DBoW2/`, `src/KeyFrameDatabase.cc`): instead of
 a 10^6-leaf vocabulary tree walked per descriptor, the vocabulary is a flat
 bank of W binary centroids; the transform of a whole frame is ONE bit-matmul

@@ -4,7 +4,7 @@ The reference loads the ~10^6-word ``ORBvoc.txt`` at startup
 (`/root/reference/src/System.cc:85-101`); this build ships a 32k-word bank
 trained offline by ``scripts/train_vocab.py`` (hierarchical k-majority over
 descriptors harvested from many synthetic viewpoints, flattened for exact
-MXU argmin transform).  ``load_default_vocabulary`` returns it, or ``None``
+matmul argmin transform).  ``load_default_vocabulary`` returns it, or ``None``
 when the asset is absent (callers fall back to on-the-fly training).
 """
 

@@ -1,10 +1,10 @@
-"""Binary visual vocabulary: training (k-majority) and MXU transform.
+"""Binary visual vocabulary: training (k-majority) and matmul transform.
 
 Replaces ``DBoW2::TemplatedVocabulary`` (`Thirdparty/DBoW2/DBoW2/
 TemplatedVocabulary.h:135-162,420-423`): the reference walks a k=10, L=6
 tree per descriptor; here the vocabulary is a flat bank of W centroids and
 ``transform`` is one bit-matmul argmin over all W (for W <= ~16k this is
-faster on the MXU than a tree walk is on a CPU, and has no data-dependent
+faster as a matmul than a tree walk is on a CPU, and has no data-dependent
 control flow).  A two-level variant (coarse then fine) covers the
 ``FeatureVector`` use (match gating at a coarse tree level).
 
@@ -76,7 +76,7 @@ def train_vocabulary(
 
 @jax.jit
 def transform(vocab: jnp.ndarray, desc: jnp.ndarray, valid: jnp.ndarray):
-    """Assign every descriptor to its nearest word (one MXU matmul).
+    """Assign every descriptor to its nearest word (one matmul).
 
     vocab: (W, 8) uint32; desc: (N, 8) uint32.
     Returns (word (N,) int32 [-1 for invalid], dist (N,) int32).

@@ -7,7 +7,7 @@ planes (back wall, floor, side wall) with high-frequency random textures,
 ray-cast per pixel with bilinear texture sampling.  Non-planar scene
 geometry keeps two-view initialization well-conditioned.
 
-Pure numpy (host-side test harness, not part of the TPU compute path).
+Pure numpy (host-side test harness, not part of the device compute path).
 """
 
 from __future__ import annotations

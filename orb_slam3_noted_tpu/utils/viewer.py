@@ -1,7 +1,7 @@
 """Offline map/trajectory visualization (the reference's Viewer, L9).
 
 The reference renders a live Pangolin/OpenGL UI (`/root/reference/src/
-Viewer.cc`, ``MapDrawer::DrawMapPoints/DrawKeyFrames``); a TPU pod has no
+Viewer.cc`, ``MapDrawer::DrawMapPoints/DrawKeyFrames``); an accelerator host has no
 display, so observability is offline/streamed instead (SURVEY §5):
 
 - :func:`save_map_png` — matplotlib top-down + side orthographic views of
@@ -82,7 +82,7 @@ def save_map_png(slam, path: str, dpi: int = 120):
 
 
 _HTML_TEMPLATE = """<!DOCTYPE html>
-<html><head><meta charset="utf-8"><title>orb-slam3-noted-tpu map</title>
+<html><head><meta charset="utf-8"><title>orb-slam3-noted map</title>
 <style>body{margin:0;background:#111;color:#ccc;font:12px monospace}
 #hud{position:fixed;top:8px;left:8px}</style></head>
 <body><canvas id="c"></canvas><div id="hud"></div>
@@ -139,7 +139,7 @@ def export_map_html(slam, path: str):
 # ---------------------------------------------------------------------------
 # live viewer: the reference's Pangolin UI thread (`src/Viewer.cc:130-170`)
 # becomes a daemon HTTP server streaming map snapshots to a browser canvas —
-# a TPU host has no display, but every dev box has a browser
+# an accelerator host has no display, but every dev box has a browser
 # ---------------------------------------------------------------------------
 
 _LIVE_SHIM = """let DATA={points:[],trajectory:[],kf_centers:[],covis_edges:[],n_kf:0,n_mp:0};

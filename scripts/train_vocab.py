@@ -4,7 +4,7 @@ Replaces the reference's shipped pretrained ``ORBvoc.txt`` (10^6-word k=10
 L=6 DBoW2 tree, stripped from this mirror per ``.MISSING_LARGE_BLOBS``): we
 train hierarchically (k=32, 3 levels, the same HKmeansStep construction as
 ``TemplatedVocabulary::create``) for speed, then FLATTEN the 32768 leaves
-into one centroid bank — the MXU ``transform`` does exact flat argmin, which
+into one centroid bank — the matmul ``transform`` does exact flat argmin, which
 is strictly better retrieval than a greedy tree descent.
 
 Round 3: the corpus grew from 6 box rooms / 60 views to 18 scenes x 14

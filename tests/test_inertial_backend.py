@@ -5,7 +5,7 @@ The reference pushes EVERY keyframe to LoopClosing regardless of sensor
 inertial path with the 0.5 stereo-inertial redundancy
 (`src/LocalMapping.cc:982-1010`), and corrects inertial loops with the 4-DoF
 yaw+translation essential graph so gravity stays untouched
-(`src/LoopClosing.cc:1072-1081`).  These tests pin that behaviour in the TPU
+(`src/LoopClosing.cc:1072-1081`).  These tests pin that behaviour in the JAX
 engine:
 
 - a drifted gravity-aligned inertial map must be corrected by the 4-DoF

@@ -11,8 +11,10 @@ from orb_slam3_noted_tpu.io.yaml_compat import load_settings
 from orb_slam3_noted_tpu.models.cameras import KANNALA_BRANDT8, PINHOLE
 from orb_slam3_noted_tpu.pipeline.system import FrameRecord
 
-EUROC_YAML = "/root/reference/Examples/Stereo-Inertial/EuRoC.yaml"
-TUMVI_YAML = "/root/reference/Examples/Stereo-Inertial/TUM_512.yaml"
+# minimal settings files in the reference's schema (Examples/Stereo-Inertial)
+_FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+EUROC_YAML = os.path.join(_FIXTURES, "EuRoC.yaml")
+TUMVI_YAML = os.path.join(_FIXTURES, "TUM_512.yaml")
 
 
 class TestYamlCompat:

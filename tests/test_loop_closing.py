@@ -9,6 +9,7 @@ the BoW database, verify the Sim3, and pull the tail back.
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 
 from orb_slam3_noted_tpu.geometry import sim3, so3
@@ -255,3 +256,64 @@ def test_sim3_ladder_rejects_inconsistent_observations(rng):
         "reprojection-inconsistent loop must be rejected by the ladder"
     )
     assert lc.loops_closed == 0
+
+
+@pytest.mark.parametrize("mesh_devices", [1, 8])
+def test_loop_correction_device_choice(rng, monkeypatch, mesh_devices):
+    """The conftest exposes 8 devices, yet correction stays on one device
+    (single-device pose graph, time-sliced GBA) unless
+    ``SlamConfig.loop_mesh_devices`` asks for the sharded paths."""
+    import dataclasses
+
+    from orb_slam3_noted_tpu.optim import gba as gba_mod
+    from orb_slam3_noted_tpu.optim import pose_graph as pg_mod
+    from orb_slam3_noted_tpu.pipeline import loop_closing as lc_mod
+
+    assert jax.device_count() == 8
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(lc_mod, "optimize_pose_graph_sim3", spy(
+        "pose_graph", lc_mod.optimize_pose_graph_sim3))
+    monkeypatch.setattr(pg_mod, "distributed_pose_graph_sim3", spy(
+        "pose_graph_sharded", pg_mod.distributed_pose_graph_sim3))
+    monkeypatch.setattr(gba_mod, "SlicedGBA", spy(
+        "sliced_gba", gba_mod.SlicedGBA))
+    # the sharded GBA itself is covered by test_dist_ba; record the choice
+    monkeypatch.setattr(gba_mod, "run_global_ba_mesh", lambda m, *a, **k: (
+        calls.append(("gba_mesh", a[2].size)) or (m, None)))
+
+    m, n_kf, pts, S_drift, desc = build_drifted_map(rng)
+    tail = n_kf - 1
+    train = np.concatenate(
+        [desc, rng.integers(0, 2**32, size=(2000, 8), dtype=np.uint32)]
+    )
+    vocab = train_vocabulary(train, n_words=256, n_iters=4)
+    lc = LoopCloser(vocab, max_keyframes=32, min_inliers=20, exclude_recent=3,
+                    consistency_th=0)
+    cfg = dataclasses.replace(_ladder_cfg(len(pts)),
+                              loop_mesh_devices=mesh_devices)
+    slam = FakeSlamFull(m, n_kf, cfg)
+    for k in range(tail):
+        _, bow = lc.db.compute_bow(m.kf_desc[k], m.kf_feat_valid[k])
+        lc.db.add(k, bow)
+    assert lc.on_keyframe(slam, tail)
+    if mesh_devices == 1:
+        assert calls == ["pose_graph", "sliced_gba"]
+        assert lc.active_gba is not None
+    else:
+        assert calls == ["pose_graph_sharded", ("gba_mesh", 8)]
+        assert lc.active_gba is None
+    # either path pulls the drifted duplicates back onto the originals
+    mp = np.asarray(slam.m.mp_pos)
+    n_pts = len(pts)
+    err = np.linalg.norm(mp[n_pts: 2 * n_pts] - pts, axis=1)
+    before = np.linalg.norm(
+        (S_drift[2] * (pts @ S_drift[0].T) + S_drift[1]) - pts, axis=1
+    )
+    assert np.median(err) < 0.15 * np.median(before)

@@ -2,7 +2,7 @@
 
 The reference's nodes buffer topic messages and feed ``System::Track*``
 from a sync loop (`Examples/ROS/ORB_SLAM3/src/ros_mono.cc`,
-`ros_mono_inertial.cc:141-185`).  These tests drive the TPU-native
+`ros_mono_inertial.cc:141-185`).  These tests drive the
 equivalent: in-process grab callbacks, the image/IMU timestamp sync
 guard, and the full TCP round-trip with poses streamed back.
 """

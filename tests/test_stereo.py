@@ -57,3 +57,46 @@ class TestStereoMatching:
             xy[:, 0] - bf / np.asarray(sm.depth)[v],
             atol=1e-4,
         )
+
+
+def test_full_width_batch_depth():
+    """EuRoC width (752x480, 1200 features, 8 levels): batched extraction
+    and the gather SAD refinement recover the rendered depth."""
+    import jax
+
+    W, H, baseline = 752, 480, 0.11
+    cam = Camera(PINHOLE, (458.654, 457.296, 367.215, 248.375))
+    bf = cam.fx * baseline
+    room = BoxRoom(seed=0)
+    yaws = (0.45, 0.6)
+    pairs = [
+        stereo_pair(room, np.asarray(so3_exp(y)), np.array([0.0, 0.0, 0.5 * k]),
+                    cam.params, W, H, baseline)
+        for k, y in enumerate(yaws)
+    ]
+    L = jnp.asarray(np.stack([p[0] for p in pairs]).astype(np.uint8),
+                    jnp.float32)
+    R = jnp.asarray(np.stack([p[1] for p in pairs]).astype(np.uint8),
+                    jnp.float32)
+    fl = O.extract_orb_batch(L, n_features=1200, n_levels=8)
+    fr = O.extract_orb_batch(R, n_features=1200, n_levels=8)
+    assert fl.xy.shape == (2, 1200, 2) and fl.desc.shape == (2, 1200, 8)
+    pyr = jax.vmap(lambda im: tuple(I.build_pyramid(im, 8)))
+    sm = jax.vmap(
+        lambda a, b, c, d: match_stereo(a, b, c, d, bf=bf, baseline=baseline)
+    )(fl, fr, pyr(L), pyr(R))
+    for f, (_, _, depth_gt) in enumerate(pairs):
+        v = np.asarray(sm.valid[f])
+        assert v.sum() > 400, f"frame {f}: only {v.sum()} stereo matches"
+        xy = np.asarray(fl.xy[f])[v]
+        gt = depth_gt[np.clip(np.round(xy[:, 1]).astype(int), 0, H - 1),
+                      np.clip(np.round(xy[:, 0]).astype(int), 0, W - 1)]
+        rel = np.abs(np.asarray(sm.depth[f])[v] - gt) / gt
+        assert np.median(rel) < 0.05, np.median(rel)
+        assert (rel < 0.15).mean() > 0.85
+
+
+def so3_exp(yaw):
+    from orb_slam3_noted_tpu.geometry import so3
+
+    return so3.exp(jnp.asarray([0.0, yaw, 0.0]))
